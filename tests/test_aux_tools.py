@@ -25,7 +25,7 @@ def aligned_data(reference_binary, tmp_path_factory):
 
 
 def _run_module(mod, args, cwd):
-    env = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
+    env = {"PYTHONPATH": str(REPO), "BSMAP_JAX_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu", "HOME": "/root"}
     r = subprocess.run([sys.executable, "-m", mod] + args, cwd=cwd,
                        capture_output=True, env=env)
@@ -78,7 +78,7 @@ def test_methratio_parity(aligned_data, src, extra):
     d = aligned_data
     _ref_methratio(d, ["-d", "ref.fa", "-o", "ref_m.txt", "-q"]
                    + extra + [src])
-    _run_module("bsmap_tpu.methratio",
+    _run_module("bsmap_jax.methratio",
                 ["-d", "ref.fa", "-o", "our_m.txt", "-q"] + extra + [src],
                 d)
     assert_same(d, "ref_m.txt", "our_m.txt")
@@ -89,7 +89,7 @@ def test_bam_roundtrip(aligned_data):
     import shutil
     shutil.copy(d / "out.sam", d / "rt.bam")
     sys.path.insert(0, str(REPO))
-    from bsmap_tpu.bamio import sam_to_bam, bam_sam_lines
+    from bsmap_jax.bamio import sam_to_bam, bam_sam_lines
     sam_to_bam(str(d / "rt.bam"))
     body = sorted(l for l in open(d / "out.sam") if not l.startswith("@"))
     back = sorted(bam_sam_lines(str(d / "rt.bam")))
@@ -105,7 +105,7 @@ def test_bam_as_input_parity(reference_binary, aligned_data):
     import shutil
     shutil.copy(d / "out.sam", d / "in.bam")
     sys.path.insert(0, str(REPO))
-    from bsmap_tpu.bamio import sam_to_bam
+    from bsmap_jax.bamio import sam_to_bam
     sam_to_bam(str(d / "in.bam"))
     base = ["-a", "in.bam", "-d", "ref.fa", "-S", "1", "-v", "2"]
     run_ref(reference_binary, d, base + ["-o", "refb.sam"])
@@ -115,7 +115,7 @@ def test_bam_as_input_parity(reference_binary, aligned_data):
 
 def test_bsp2sam(aligned_data):
     d = aligned_data
-    _run_module("bsmap_tpu.bsp2sam",
+    _run_module("bsmap_jax.bsp2sam",
                 ["-d", "ref.fa", "-o", "b2s.sam", "-q", "out.bsp"], d)
     lines = [l for l in open(d / "b2s.sam")]
     assert lines[0].startswith("@HD")

@@ -31,7 +31,7 @@ def dist_data(tmp_path_factory):
 
 def _run(d, out, extra):
     import os
-    cmd = [sys.executable, "-m", "bsmap_tpu.cli", "-a", str(d / "rm.fq"),
+    cmd = [sys.executable, "-m", "bsmap_jax.cli", "-a", str(d / "rm.fq"),
            "-d", str(d / "g.fa"), "-o", str(d / out), "-S", "1", "-v", "2",
            "-u"] + extra
     return subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ),
@@ -61,7 +61,7 @@ def dist_pe_data(tmp_path_factory):
 
 def _run_pe(d, out, extra):
     import os
-    cmd = [sys.executable, "-m", "bsmap_tpu.cli", "-a", str(d / "ra.fq"),
+    cmd = [sys.executable, "-m", "bsmap_jax.cli", "-a", str(d / "ra.fq"),
            "-b", str(d / "rb.fq"), "-d", str(d / "g.fa"),
            "-o", str(d / out), "-S", "1", "-v", "2", "-u"] + extra
     return subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ),
@@ -88,7 +88,7 @@ def test_p_flag_local_multiprocess_bsp(dist_data):
     d = dist_data
     env = dict(os.environ)
     for out, extra in (("one.bsp", ["-p", "1"]), ("two.bsp", ["-p", "2"])):
-        cmd = [sys.executable, "-m", "bsmap_tpu.cli", "-a", str(d / "rm.fq"),
+        cmd = [sys.executable, "-m", "bsmap_jax.cli", "-a", str(d / "rm.fq"),
                "-d", str(d / "g.fa"), "-o", str(d / out), "-S", "1",
                "-v", "2", "--engine", "host"] + extra
         r = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True)
@@ -112,7 +112,7 @@ def test_two_process_with_real_coordinator(dist_data):
     env["JAX_PLATFORMS"] = "cpu"
     procs = [
         subprocess.Popen(
-            [sys.executable, "-m", "bsmap_tpu.cli", "-a",
+            [sys.executable, "-m", "bsmap_jax.cli", "-a",
              str(dist_data / "rm.fq"), "-d", str(dist_data / "g.fa"),
              "-o", str(dist_data / "coord.sam"), "-S", "1", "-v", "2",
              "-u", "--engine", "host", "--nprocs", "2", "--proc-id",

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from bsmap_tpu import encoding as enc
-from bsmap_tpu.params import Param
+from bsmap_jax import encoding as enc
+from bsmap_jax.params import Param
 
 
 def test_pack_unpack_roundtrip():
@@ -109,7 +109,7 @@ def test_profiles():
 
 
 def test_myrand_matches_formula():
-    from bsmap_tpu.utils import myrand_hash
+    from bsmap_jax.utils import myrand_hash
     # spot-check the xorshift chain stays in uint64
     v = myrand_hash(np.array([0, 1, 2, 1000000]), 1)
     assert v.dtype == np.uint32

@@ -131,17 +131,17 @@ def test_s0_pe_device_matches_host(pe_eng_data, extra):
     from .conftest import REPO
 
     d = pe_eng_data
-    env = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
-           "JAX_PLATFORMS": "cpu", "BSMAP_TPU_DEV_BATCH": "2048",
-           "BSMAP_TPU_CANDS_PER_READ": "16", "HOME": "/root",
-           "BSMAP_TPU_RANDR_SEED": "1234"}
+    env = {"PYTHONPATH": str(REPO), "BSMAP_JAX_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu", "BSMAP_JAX_DEV_BATCH": "2048",
+           "BSMAP_JAX_CANDS_PER_READ": "16", "HOME": "/root",
+           "BSMAP_JAX_RANDR_SEED": "1234"}
     tag = "r0" if extra else "r1"
     base = ["-a", "po1.fq", "-b", "po2.fq", "-d", "ec2.fa",
             "-v", "2", "-u", "-S", "0"] + extra
     for eng, out in (("host", f"s0p_host_{tag}.sam"),
                      ("device", f"s0p_dev_{tag}.sam")):
         r = subprocess.run(
-            [sys.executable, "-m", "bsmap_tpu.cli"] + base
+            [sys.executable, "-m", "bsmap_jax.cli"] + base
             + ["-o", out, "--engine", eng],
             cwd=d, capture_output=True, env=env)
         assert r.returncode == 0, r.stderr.decode()
@@ -160,14 +160,14 @@ def test_s0_device_matches_host(eng_data):
     from .conftest import REPO
 
     d = eng_data
-    env = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
-           "JAX_PLATFORMS": "cpu", "BSMAP_TPU_DEV_BATCH": "2048",
-           "BSMAP_TPU_CANDS_PER_READ": "16", "HOME": "/root",
-           "BSMAP_TPU_RANDR_SEED": "99"}
+    env = {"PYTHONPATH": str(REPO), "BSMAP_JAX_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu", "BSMAP_JAX_DEV_BATCH": "2048",
+           "BSMAP_JAX_CANDS_PER_READ": "16", "HOME": "/root",
+           "BSMAP_JAX_RANDR_SEED": "99"}
     base = ["-a", "reads.fq", "-d", "ref.fa", "-v", "2", "-u", "-S", "0"]
     for eng, out in (("host", "s0_host.sam"), ("device", "s0_dev.sam")):
         r = subprocess.run(
-            [sys.executable, "-m", "bsmap_tpu.cli"] + base
+            [sys.executable, "-m", "bsmap_jax.cli"] + base
             + ["-o", out, "--engine", eng],
             cwd=d, capture_output=True, env=env)
         assert r.returncode == 0, r.stderr.decode()

@@ -17,13 +17,13 @@ def run_ref(binary, workdir, args):
 
 
 def run_ours(workdir, args, engine="host", extra_env=None):
-    env = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
+    env = {"PYTHONPATH": str(REPO), "BSMAP_JAX_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu",
-           "BSMAP_TPU_DEV_BATCH": "2048", "BSMAP_TPU_CANDS_PER_READ": "16",
+           "BSMAP_JAX_DEV_BATCH": "2048", "BSMAP_JAX_CANDS_PER_READ": "16",
            "HOME": "/root"}
     if extra_env:
         env.update(extra_env)
-    r = subprocess.run([sys.executable, "-m", "bsmap_tpu.cli"] + args
+    r = subprocess.run([sys.executable, "-m", "bsmap_jax.cli"] + args
                        + ["--engine", engine],
                        cwd=workdir, capture_output=True, env=env)
     assert r.returncode == 0, r.stderr.decode()

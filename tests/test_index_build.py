@@ -6,10 +6,10 @@ import os
 import numpy as np
 import pytest
 
-from bsmap_tpu import native
-from bsmap_tpu.params import Param
-from bsmap_tpu.reference import load_genome
-import bsmap_tpu.index as ix
+from bsmap_jax import native
+from bsmap_jax.params import Param
+from bsmap_jax.reference import load_genome
+import bsmap_jax.index as ix
 
 
 def _write_genome(tmp_path, seqs):
@@ -45,11 +45,11 @@ def test_native_matches_numpy(genome_path, s, i):
     p.index_interval = i
     p.init_mapping()
     g = load_genome(genome_path, p)
-    os.environ["BSMAP_TPU_NATIVE_INDEX"] = "0"
+    os.environ["BSMAP_JAX_NATIVE_INDEX"] = "0"
     try:
         a = ix.build_index(g, p)
     finally:
-        os.environ["BSMAP_TPU_NATIVE_INDEX"] = "1"
+        os.environ["BSMAP_JAX_NATIVE_INDEX"] = "1"
     b = ix._build_wgbs_native(g, p, lib)
     assert np.array_equal(a.offsets, b.offsets)
     assert np.array_equal(a.locs, b.locs)

@@ -13,12 +13,12 @@ from .test_golden_se import assert_same, run_ref
 
 
 def run_sharded(workdir, args, ndev=8):
-    env = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
+    env = {"PYTHONPATH": str(REPO), "BSMAP_JAX_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": f"--xla_force_host_platform_device_count={ndev}",
-           "BSMAP_TPU_DEV_BATCH": "1024", "BSMAP_TPU_CANDS_PER_READ": "16",
+           "BSMAP_JAX_DEV_BATCH": "1024", "BSMAP_JAX_CANDS_PER_READ": "16",
            "HOME": "/root"}
-    r = subprocess.run([sys.executable, "-m", "bsmap_tpu.cli"] + args
+    r = subprocess.run([sys.executable, "-m", "bsmap_jax.cli"] + args
                        + ["--engine", "index-sharded"],
                        cwd=workdir, capture_output=True, env=env)
     assert r.returncode == 0, r.stderr.decode()
@@ -36,10 +36,10 @@ def test_region_shards_partition():
     """Every index entry is owned by exactly one shard and in-bucket order
     is preserved."""
     import io
-    from bsmap_tpu.params import Param
-    from bsmap_tpu.reference import load_genome
-    from bsmap_tpu.index import build_index
-    from bsmap_tpu.parallel.index_sharded import build_region_shards
+    from bsmap_jax.params import Param
+    from bsmap_jax.reference import load_genome
+    from bsmap_jax.index import build_index
+    from bsmap_jax.parallel.index_sharded import build_region_shards
 
     p = Param()
     p.set_seed_size(10)
@@ -78,12 +78,12 @@ def test_index_sharded_parity(reference_binary, shard_data, cfg):
 
 
 def run_mesh(workdir, args, engine, ndev=8):
-    env = {"PYTHONPATH": str(REPO), "BSMAP_TPU_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
+    env = {"PYTHONPATH": str(REPO), "BSMAP_JAX_CPU_JIT_CACHE": "1", "PATH": "/usr/bin:/bin",
            "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": f"--xla_force_host_platform_device_count={ndev}",
-           "BSMAP_TPU_DEV_BATCH": "1024", "BSMAP_TPU_CANDS_PER_READ": "16",
+           "BSMAP_JAX_DEV_BATCH": "1024", "BSMAP_JAX_CANDS_PER_READ": "16",
            "HOME": "/root"}
-    r = subprocess.run([sys.executable, "-m", "bsmap_tpu.cli"] + args
+    r = subprocess.run([sys.executable, "-m", "bsmap_jax.cli"] + args
                        + ["--engine", engine],
                        cwd=workdir, capture_output=True, env=env)
     assert r.returncode == 0, r.stderr.decode()

@@ -71,7 +71,7 @@ def test_pe_repeat_s0_device_vs_host(repeat_pe_data):
     impossible; the host engine is its golden-tested oracle)."""
     base = ["-a", "p1.fq", "-b", "p2.fq", "-d", "g.fa",
             "-S", "0", "-v", "2", "-u"]
-    pin = {"BSMAP_TPU_RANDR_SEED": "1"}
+    pin = {"BSMAP_JAX_RANDR_SEED": "1"}
     run_ours(repeat_pe_data, base + ["-o", "s0_host.sam"], engine="host",
              extra_env=pin)
     run_ours(repeat_pe_data, base + ["-o", "s0_dev.sam"], engine="device",

@@ -20,7 +20,7 @@ def data(tmp_path_factory):
 
 def _run_cli(d, out, extra):
     env = dict(__import__("os").environ)
-    cmd = [sys.executable, "-m", "bsmap_tpu.cli", "-a", str(d / "r.fq"),
+    cmd = [sys.executable, "-m", "bsmap_jax.cli", "-a", str(d / "r.fq"),
            "-d", str(d / "g.fa"), "-o", str(d / out), "-S", "3", "-v", "2",
            "-u"] + extra
     subprocess.run(cmd, check=True, cwd=REPO, env=env,
@@ -36,12 +36,12 @@ def test_sharded_matches_device(data):
 
 def test_sharded_engine_inprocess(data):
     import jax
-    from bsmap_tpu.params import Param
-    from bsmap_tpu.reference import load_genome
-    from bsmap_tpu.index import build_index
-    from bsmap_tpu.readio import open_read_stream
-    from bsmap_tpu.parallel import ShardedDeviceEngine, make_mesh
-    from bsmap_tpu.engine.device_engine import DeviceEngine, DeviceView
+    from bsmap_jax.params import Param
+    from bsmap_jax.reference import load_genome
+    from bsmap_jax.index import build_index
+    from bsmap_jax.readio import open_read_stream
+    from bsmap_jax.parallel import ShardedDeviceEngine, make_mesh
+    from bsmap_jax.engine.device_engine import DeviceEngine, DeviceView
 
     assert len(jax.devices()) >= 8, "conftest must provide 8 virtual devices"
     p = Param()

@@ -96,11 +96,12 @@ def generate(out_dir: str, seed: int = 7, n_chr: int = 2,
         f"_{repeat_frac}.ok")
     if os.path.exists(stamp):
         return gpath, rpath
-    # genome.fa/reads.fq are shared filenames: drop stale stamps from other
-    # param sets so a later call with THOSE params regenerates instead of
-    # trusting a file this call is about to overwrite
+    # genome{tag}.fa/reads{tag}.fq are shared filenames: drop stale stamps
+    # of THIS tag's other param sets (a stamp's tag is followed by the
+    # numeric seed, so other tags' stamps never match) so a later call with
+    # those params regenerates instead of trusting an overwritten file
     import glob
-    for old in glob.glob(os.path.join(out_dir, f"gen{tag}_*.ok")):
+    for old in glob.glob(os.path.join(out_dir, f"gen{tag}_[0-9]*.ok")):
         os.remove(old)
     chrs = make_genome(seed, n_chr, chr_len, repeat_frac=repeat_frac)
     write_genome(gpath, chrs)
@@ -214,4 +215,4 @@ def generate_chr21(out_dir: str, n_reads: int = 1_000_000):
 
 if __name__ == "__main__":
     import sys
-    generate(sys.argv[1] if len(sys.argv) > 1 else "/tmp/bsmap_tpu_bench")
+    generate(sys.argv[1] if len(sys.argv) > 1 else "bench_data")

@@ -19,7 +19,10 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-BENCH_DIR = os.environ.get("BSMAP_TPU_BENCH_DIR", "/tmp/bsmap_tpu_bench")
+BENCH_DIR = os.environ.get(
+    "BSMAP_JAX_BENCH_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 ".bench_data"))
 N_CHR = int(os.environ.get("HG38_N_CHR", 13))
 CHR_LEN = int(os.environ.get("HG38_CHR_LEN", 239_999_970))
 
@@ -48,10 +51,10 @@ def gen_genome(path: str) -> None:
 
 def main() -> None:
     import numpy as np
-    from bsmap_tpu.params import Param
-    from bsmap_tpu.reference import load_genome
-    from bsmap_tpu.index import build_index, save_index, load_index
-    from bsmap_tpu.parallel.index_sharded import build_region_shards
+    from bsmap_jax.params import Param
+    from bsmap_jax.reference import load_genome
+    from bsmap_jax.index import build_index, save_index, load_index
+    from bsmap_jax.parallel.index_sharded import build_region_shards
 
     os.makedirs(BENCH_DIR, exist_ok=True)
     gpath = os.path.join(BENCH_DIR, "genome_hg38s.fa")
@@ -106,9 +109,9 @@ def main() -> None:
     del tabs, wl_s, cl_s
 
     # end-to-end correctness smoke test at scale: host-align genome reads
-    from bsmap_tpu.engine.host_engine import HostEngine
-    from bsmap_tpu.readio import Read
-    from bsmap_tpu.encoding import unpack_u32
+    from bsmap_jax.engine.host_engine import HostEngine
+    from bsmap_jax.readio import Read
+    from bsmap_jax.encoding import unpack_u32
     rng = np.random.RandomState(1)
     eng = HostEngine(genome, index, p)
     nt = "ACGT"

@@ -22,7 +22,10 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-BENCH_DIR = os.environ.get("BSMAP_TPU_BENCH_DIR", "/tmp/bsmap_tpu_bench")
+BENCH_DIR = os.environ.get(
+    "BSMAP_JAX_BENCH_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 ".bench_data"))
 OUT = os.path.join(REPO, "BASELINE_MEASURED.json")
 
 
@@ -58,7 +61,7 @@ def main() -> None:
                          "align phase = full-run wall minus -E 100 "
                          "setup-run wall; same data and flags as bench.py"}
 
-    n = int(os.environ.get("BSMAP_TPU_BENCH_READS", 1_000_000))
+    n = int(os.environ.get("BSMAP_JAX_BENCH_READS", 1_000_000))
     g, r = generate(BENCH_DIR, n_reads=n)
     ups, al, tot = run_ref(binary, ["-a", os.path.basename(r),
                                     "-d", os.path.basename(g),
